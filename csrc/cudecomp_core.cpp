@@ -2,7 +2,7 @@
 //
 // The reference implements all of this in C++ (getSplits common.h:579-589,
 // cudecompGetPencilInfoVersioned src/cudecomp.cc:1317-1379,
-// cudecompGetShiftedRank :1710-1755).  This library is the TPU rebuild's
+// cudecompGetShiftedRank :1710-1755).  This library is the JAX rebuild's
 // native equivalent: a small C-ABI shared object used by the Python layer
 // (via ctypes) for the hot host-side paths — autotuner candidate sweeps
 // evaluate pencil geometry for many (pdims x layout) configurations — with

@@ -1,19 +1,19 @@
-"""cudecomp_tpu — a TPU-native pencil-decomposition library.
+"""cudecomp_tpu — a JAX pencil-decomposition library.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of NVIDIA/cuDecomp
-(reference: /root/reference): 1D slab and 2D pencil decompositions of 3D
-Cartesian grids over a 2D device mesh, the full global transpose set
-(X<->Y, Y<->Z), halo-exchange routines, a distributed 3D FFT (c2c/r2c), and a
-runtime autotuner that jointly searches process-grid shape x transpose
-strategy x memory layout from compiled-program timings.
+A ground-up JAX/XLA rebuild of the capabilities of NVIDIA/cuDecomp: 1D slab
+and 2D pencil decompositions of 3D Cartesian grids over a 2D device mesh, the
+full global transpose set (X<->Y, Y<->Z), halo-exchange routines, a
+distributed 3D FFT (c2c/r2c), and a runtime autotuner that jointly searches
+process-grid shape x transpose strategy x memory layout from compiled-program
+timings.
 
-Design stance (TPU-first, not a port):
+Design stance (a rebuild, not a port):
   * the process grid is a ``jax.sharding.Mesh`` with axes ``('pr', 'pc')``;
   * the NCCL/NVSHMEM/CUDA-aware-MPI backend zoo of the reference collapses to
     XLA collectives: ``lax.all_to_all`` (one-shot) and ``lax.ppermute`` rings
-    (pipelined analog) over ICI/DCN;
-  * pack/unpack/local-permute kernels are fused by XLA or implemented in
-    Pallas for the hot paths;
+    (pipelined analog), which XLA hands to NCCL on GPUs;
+  * local FFTs are ``jnp.fft`` (cuFFT on GPUs); pack/unpack/local-permute
+    work is fused by XLA;
   * everything is functional and jittable; there are no streams, events,
     workspaces or allocators — XLA owns buffers.  Workspace-size queries are
     kept as diagnostics for parity with the reference API.

@@ -16,23 +16,25 @@ Mapping rules (see also ``docs/migration.md``):
 * Config/options "structs" are mutable dataclasses with the REFERENCE
   field names (``cudecomp.h:128-238``), translated to the native frozen
   dataclasses at ``cudecompGridDescCreate`` time.
-* Communication backends map by algorithmic role (the vendor libraries do
-  not exist on TPU; the strategies that play their roles do):
+* Communication backends map by algorithmic role (XLA owns the transport
+  — NCCL on GPUs — so the strategies that play each backend's role stand
+  in for it; NVSHMEM's device-initiated puts have no JAX route and map to
+  the NCCL-backed collectives):
 
   ====================================  ==============================
-  reference backend                     TPU strategy
+  reference backend                     strategy
   ====================================  ==============================
   CUDECOMP_TRANSPOSE_COMM_MPI_A2A       TransposeMethod.ALL_TO_ALL
   CUDECOMP_TRANSPOSE_COMM_MPI_P2P       TransposeMethod.RING
   CUDECOMP_TRANSPOSE_COMM_MPI_P2P_PL    TransposeMethod.RING_PIPELINED
   CUDECOMP_TRANSPOSE_COMM_NCCL          TransposeMethod.RING_XOR
   CUDECOMP_TRANSPOSE_COMM_NCCL_PL       TransposeMethod.RING_PIPELINED
-  CUDECOMP_TRANSPOSE_COMM_NVSHMEM       TransposeMethod.PALLAS_A2A
-  CUDECOMP_TRANSPOSE_COMM_NVSHMEM_PL    TransposeMethod.PALLAS_A2A
-  CUDECOMP_TRANSPOSE_COMM_NVSHMEM_SM    TransposeMethod.PALLAS_A2A
+  CUDECOMP_TRANSPOSE_COMM_NVSHMEM       TransposeMethod.ALL_TO_ALL
+  CUDECOMP_TRANSPOSE_COMM_NVSHMEM_PL    TransposeMethod.RING_PIPELINED
+  CUDECOMP_TRANSPOSE_COMM_NVSHMEM_SM    TransposeMethod.ALL_TO_ALL
   CUDECOMP_HALO_COMM_MPI[_BLOCKING]     HaloMethod.PPERMUTE
   CUDECOMP_HALO_COMM_NCCL               HaloMethod.PPERMUTE
-  CUDECOMP_HALO_COMM_NVSHMEM[_BLOCKING] HaloMethod.PALLAS
+  CUDECOMP_HALO_COMM_NVSHMEM[_BLOCKING] HaloMethod.PPERMUTE
   ====================================  ==============================
 
 * Transposes/halo updates are functional: they RETURN the result array
@@ -94,16 +96,18 @@ _TRANSPOSE_BACKEND_MAP = {
     CUDECOMP_TRANSPOSE_COMM_MPI_A2A: TransposeMethod.ALL_TO_ALL,
     CUDECOMP_TRANSPOSE_COMM_NCCL: TransposeMethod.RING_XOR,
     CUDECOMP_TRANSPOSE_COMM_NCCL_PL: TransposeMethod.RING_PIPELINED,
-    CUDECOMP_TRANSPOSE_COMM_NVSHMEM: TransposeMethod.PALLAS_A2A,
-    CUDECOMP_TRANSPOSE_COMM_NVSHMEM_PL: TransposeMethod.PALLAS_A2A,
-    CUDECOMP_TRANSPOSE_COMM_NVSHMEM_SM: TransposeMethod.PALLAS_A2A,
+    # no device-initiated puts from JAX: NVSHMEM requests run on the
+    # NCCL-backed collectives that play the same role
+    CUDECOMP_TRANSPOSE_COMM_NVSHMEM: TransposeMethod.ALL_TO_ALL,
+    CUDECOMP_TRANSPOSE_COMM_NVSHMEM_PL: TransposeMethod.RING_PIPELINED,
+    CUDECOMP_TRANSPOSE_COMM_NVSHMEM_SM: TransposeMethod.ALL_TO_ALL,
 }
 _HALO_BACKEND_MAP = {
     CUDECOMP_HALO_COMM_MPI: HaloMethod.PPERMUTE,
     CUDECOMP_HALO_COMM_MPI_BLOCKING: HaloMethod.PPERMUTE,
     CUDECOMP_HALO_COMM_NCCL: HaloMethod.PPERMUTE,
-    CUDECOMP_HALO_COMM_NVSHMEM: HaloMethod.PALLAS,
-    CUDECOMP_HALO_COMM_NVSHMEM_BLOCKING: HaloMethod.PALLAS,
+    CUDECOMP_HALO_COMM_NVSHMEM: HaloMethod.PPERMUTE,
+    CUDECOMP_HALO_COMM_NVSHMEM_BLOCKING: HaloMethod.PPERMUTE,
 }
 _DTYPE_MAP = {
     CUDECOMP_FLOAT: np.dtype(np.float32),
@@ -118,12 +122,12 @@ _FAMILY_METHODS = {
             TransposeMethod.RING_PIPELINED),
     "nccl": (TransposeMethod.RING_XOR, TransposeMethod.RING_HIER,
              TransposeMethod.RING_PIPELINED),
-    "nvshmem": (TransposeMethod.PALLAS_A2A,),
+    "nvshmem": (TransposeMethod.ALL_TO_ALL, TransposeMethod.RING_PIPELINED),
 }
 _FAMILY_HALO_METHODS = {
     "mpi": (HaloMethod.PPERMUTE,),
     "nccl": (HaloMethod.PPERMUTE,),
-    "nvshmem": (HaloMethod.PALLAS,),
+    "nvshmem": (HaloMethod.PPERMUTE,),
 }
 
 
@@ -161,7 +165,7 @@ class cudecompGridDescAutotuneOptions_t:
     n_trials: int = 5
     grid_mode: int = CUDECOMP_AUTOTUNE_GRID_TRANSPOSE
     #: reference default is CUDECOMP_DOUBLE; None keeps the library's
-    #: trial-dtype default (float32 — f64 is unsupported on TPU runtimes)
+    #: trial-dtype default (float32)
     dtype: Optional[int] = None
     allow_uneven_decompositions: bool = True
     disable_mpi_backends: bool = False
@@ -292,11 +296,9 @@ _REVERSE_TRANSPOSE_MAP = {
     TransposeMethod.ALL_TO_ALL: CUDECOMP_TRANSPOSE_COMM_MPI_A2A,
     TransposeMethod.RING_XOR: CUDECOMP_TRANSPOSE_COMM_NCCL,
     TransposeMethod.RING_HIER: CUDECOMP_TRANSPOSE_COMM_NCCL,
-    TransposeMethod.PALLAS_A2A: CUDECOMP_TRANSPOSE_COMM_NVSHMEM,
 }
 _REVERSE_HALO_MAP = {
     HaloMethod.PPERMUTE: CUDECOMP_HALO_COMM_MPI,
-    HaloMethod.PALLAS: CUDECOMP_HALO_COMM_NVSHMEM,
 }
 
 

@@ -6,7 +6,7 @@ the advection/diffusion stencils, transposes for the pressure-Poisson
 solve, and the autotuned pencil layout underneath (the usage pattern the
 reference's README and halo benchmark target; ``README.md:9-14``,
 ``benchmark/benchmark.cu`` halo mode, ``include/cudecomp.h:661-715``).
-This model is that consumer, end to end, on the TPU rebuild:
+This model is that consumer, end to end, on this rebuild:
 
   * advection + diffusion on collocated central differences, evaluated in
     ONE fused ghost-cell pass (:func:`cudecomp_tpu.halo_map` — the
@@ -84,8 +84,8 @@ class ProjectionSolver:
     the transpose/halo engines' trailing component dim.
 
     ``split_complex=True`` runs the pressure FFTs in plane-carried
-    (re, im) form on the MXU matmul FFT — no complex dtype anywhere, the
-    same chip-portable mode as :class:`~cudecomp_tpu.models.taylor_green.
+    (re, im) form on the matmul FFT — no complex dtype anywhere, the
+    same mode as :class:`~cudecomp_tpu.models.taylor_green.
     TaylorGreenSolver` / :class:`~cudecomp_tpu.models.poisson.
     PoissonSolver`.
     """

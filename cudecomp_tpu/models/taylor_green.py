@@ -44,12 +44,12 @@ def taylor_green_velocity(gdims):
 
 @dataclasses.dataclass(frozen=True)
 class TaylorGreenSolver:
-    """Set ``split_complex=True`` to run the whole solver on the MXU matmul
+    """Set ``split_complex=True`` to run the whole solver on the matmul
     FFT with PLANE-FORM spectral state — a ``(re, im)`` tuple of real
-    ``(..., 3)`` arrays — so no complex dtype support is needed (runs on any
-    TPU runtime) and no interleave pass is paid anywhere in the RK4 loop
-    (the (..., 2)-interleaved carry costs a concatenate + layout copy per
-    transform chain; BENCH_NOTES.md r3 "plane carry")."""
+    ``(..., 3)`` arrays — so no complex dtype support is needed and no
+    interleave pass is paid anywhere in the RK4 loop (the
+    (..., 2)-interleaved carry costs a concatenate + layout copy per
+    transform chain)."""
 
     grid: GridDescriptor
     nu: float = 1.0 / 100.0  # 1/Re
@@ -90,10 +90,9 @@ class TaylorGreenSolver:
         # (device_put), matching the velocity state's precision there
         sops = SpectralOperators(plan=plan, dtype=np.float64)
         # broadcast-form wavenumbers: a few KB each, so traced programs
-        # that close over the fields dict serialize kilobytes, not 3D
-        # fields (the r5 TG-384^3 remote-compile upload-limit fix); k2 /
-        # inv_k2 / the dealias mask are derived IN-TRACE by the solver
-        # methods (XLA fuses the broadcasts into their consumers)
+        # that close over the fields dict embed kilobytes, not 3D fields;
+        # k2 / inv_k2 / the dealias mask are derived IN-TRACE by the
+        # solver methods (XLA fuses the broadcasts into their consumers)
         kx, ky, kz = sops.wavenumbers()
         fields = dict(kx=kx, ky=ky, kz=kz, plan=plan, sops=sops)
         return uh, fields

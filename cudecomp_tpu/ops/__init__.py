@@ -1,1 +1,1 @@
-"""Ops subpackage: transpose engine, halo engine, distributed FFT, Pallas kernels."""
+"""Ops subpackage: transpose engine, halo engine, distributed FFT, stencils."""

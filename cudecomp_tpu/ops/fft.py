@@ -1,6 +1,6 @@
 """Distributed 3D FFT layered on the transpose engine.
 
-TPU-native rebuild of the reference FFT benchmark skeleton
+Rebuild of the reference FFT benchmark skeleton
 (``benchmark/benchmark.cu:294-412,501-611``): per-axis 1D FFTs along each
 pencil's full axis interleaved with global transposes,
 
@@ -17,11 +17,12 @@ twin-descriptor trick (``benchmark.cu:238-252``): the complex grid has
 X extent ``X//2 + 1``; Y/Z decompositions coincide since pdims match.
 
 Two FFT kernels:
-  * ``split_complex=False`` — complex dtypes + ``jnp.fft`` (XLA FFT op);
-  * ``split_complex=True`` — the MXU matmul FFT (``ops.mxu_fft``) on
-    split-complex buffers (trailing component dim 2).  This is the
-    TPU-native path: it needs no complex dtype support and runs the FFT on
-    the systolic array.  Transposes carry the component dim through.
+  * ``split_complex=False`` — complex dtypes + ``jnp.fft`` (the XLA FFT op,
+    which XLA hands to cuFFT on GPUs) — the main path;
+  * ``split_complex=True`` — the matmul FFT (``ops.mxu_fft``) on
+    split-complex buffers (trailing component dim 2): DFT stages as dense
+    real contractions, for runtimes without complex dtypes.  Transposes
+    carry the component dim through.
 
 Normalization follows jnp.fft (inverse scales by 1/N), so
 ``ifft3d(fft3d(x)) == x`` to rounding.
@@ -30,12 +31,14 @@ Normalization follows jnp.fft (inverse scales by 1/N), so
 from __future__ import annotations
 
 import dataclasses
+import functools
 import jax
 import jax.numpy as jnp
 
 from cudecomp_tpu.config import GridConfig
 from cudecomp_tpu.grid import GridDescriptor
 from cudecomp_tpu.ops import transpose as tr
+from cudecomp_tpu.parallel.collectives import shard_map_fn
 from cudecomp_tpu.utils.tracing import trace_range
 
 
@@ -45,20 +48,22 @@ def _fft_axes(grid, axis, global_axes):
     return tuple(inv[a] for a in global_axes)
 
 
-def _use_matmul_complex() -> bool:
+def _use_matmul_complex(mesh) -> bool:
     """XLA:CPU's FFT thunk RET_CHECKs on non-default operand layouts, which
     layout assignment can produce when elementwise ops sit between FFT
     stages inside one jit (e.g. a spectral scale in a Poisson solve).  On
-    the CPU backend we therefore run complex FFT stages through the matmul
-    FFT core (ops.mxu_fft, machine-precision accurate) instead of the XLA
-    FFT op.  TPU/GPU use the native XLA FFT."""
-    return jax.default_backend() == "cpu"
+    a CPU mesh we therefore run complex FFT stages through the matmul FFT
+    core (ops.mxu_fft, machine-precision accurate) instead of the XLA FFT
+    op; GPU meshes use the XLA FFT op (cuFFT).  Keyed on the platform of
+    the mesh the plan runs on, not the process default backend."""
+    return mesh.devices.flat[0].platform == "cpu"
 
 
-def _complex_fft_1d(x, axis, kind, n=None):
-    """One complex/real FFT along ``axis``: kind in fft|ifft|rfft|irfft."""
+def _complex_fft_1d(x, axis, kind, n=None, matmul=False):
+    """One complex/real FFT along ``axis``: kind in fft|ifft|rfft|irfft;
+    ``matmul`` selects the matmul FFT core (see _use_matmul_complex)."""
     from cudecomp_tpu.ops import mxu_fft
-    if _use_matmul_complex():
+    if matmul:
         if kind == "rfft":
             s = mxu_fft.rfft_split(x, axis)
             return mxu_fft.from_split(s)
@@ -75,10 +80,45 @@ def _complex_fft_1d(x, axis, kind, n=None):
     return op(x, axis=axis)
 
 
-def _xla_fftn(x, axes, inverse):
-    for a in axes:
-        x = _complex_fft_1d(x, a, "ifft" if inverse else "fft")
-    return x
+def _xla_fftn(x, axes, inverse, matmul=False):
+    if matmul:
+        for a in axes:
+            x = _complex_fft_1d(x, a, "ifft" if inverse else "fft",
+                                matmul=True)
+        return x
+    # one multi-axis XLA FFT op (one cuFFT plan over the fused axes, the
+    # reference benchmark's slab-mode multi-dimensional plans)
+    op = jnp.fft.ifftn if inverse else jnp.fft.fftn
+    return op(x, axes=tuple(axes))
+
+
+@functools.lru_cache(maxsize=512)
+def _build_local_fft(grid, axis, kind, axes, n, matmul, n_comp_dims):
+    """Jitted per-shard FFT stage on pencil-``axis`` buffers (trailing
+    component dims pass through unsharded), cached per configuration like
+    the transpose programs.
+
+    The local FFT stages run per shard: the FFT axes of a pencil are never
+    sharded, so each device transforms its own block.  Left to the SPMD
+    partitioner, XLA's FFT op is replicated instead — an all-gather of
+    the whole array onto every device."""
+    from jax.sharding import PartitionSpec
+
+    def fn(b):
+        if kind in ("fft", "ifft"):
+            return _xla_fftn(b, axes, kind == "ifft", matmul)
+        return _complex_fft_1d(b, axes[0], kind, n=n, matmul=matmul)
+
+    spec = PartitionSpec(*grid.spec(axis), *([None] * n_comp_dims))
+    return jax.jit(shard_map_fn(fn, grid.mesh, in_specs=(spec,),
+                                out_specs=spec))
+
+
+def _local_fft(grid, axis, x, kind, axes, n=None):
+    """FFT stage ``kind`` (fft|ifft|rfft|irfft) along array dims ``axes``
+    of a pencil-``axis`` buffer, run per shard (see _build_local_fft)."""
+    return _build_local_fft(grid, axis, kind, tuple(axes), n,
+                            _use_matmul_complex(grid.mesh), x.ndim - 3)(x)
 
 
 def complex_grid_config(cfg: GridConfig) -> GridConfig:
@@ -101,10 +141,11 @@ class DistributedFFT:
     For ``real=True``, forward input is a real X-pencil on ``grid`` and the
     spectral output lives on ``complex_grid`` (X extent X//2+1).
 
-    ``precision`` / ``gauss`` pin a per-plan MXU policy (the planner analog
-    of cuFFT plan attributes); ``None`` defers to the env knobs
-    (``CUDECOMP_TPU_FFT_PRECISION`` / ``_GAUSS``).  :func:`autotune_fft`
-    returns a plan with the fastest gate-passing policy pinned.
+    ``precision`` / ``gauss`` pin a per-plan matmul-FFT policy (the
+    planner analog of cuFFT plan attributes); ``None`` defers to the env
+    knobs (``CUDECOMP_TPU_FFT_PRECISION`` / ``_GAUSS``).
+    :func:`autotune_fft` returns a plan with the fastest gate-passing
+    policy pinned.
     """
 
     grid: GridDescriptor
@@ -163,13 +204,13 @@ class DistributedFFT:
 
     # -- execution -----------------------------------------------------------------
 
-    def _fftn(self, x, axes, inverse):
+    def _fftn(self, x, axis, axes, inverse):
+        """FFT along array dims ``axes`` of a pencil-``axis`` buffer."""
         if self.split_complex:
             from cudecomp_tpu.ops import mxu_fft
-            # fuses the (1, 2) axis pair into the one-HBM-pass Pallas
-            # kernel when the layout/platform allows
             return mxu_fft.fft_split_axes(x, axes, inverse=inverse)
-        return _xla_fftn(x, axes, inverse)
+        return _local_fft(self.complex_grid, axis, x,
+                          "ifft" if inverse else "fft", axes)
 
     def forward(self, x):
         """Physical X-pencil -> spectral Z-pencil."""
@@ -182,7 +223,7 @@ class DistributedFFT:
                     if self.real and first_fft:
                         x = _rfft_stage(self, cgrid, x, rest[0])
                     else:
-                        x = self._fftn(x, _fft_axes(cgrid, a, rest[0]),
+                        x = self._fftn(x, a, _fft_axes(cgrid, a, rest[0]),
                                        inverse=False)
                     first_fft = False
                 else:
@@ -203,7 +244,7 @@ class DistributedFFT:
                     if self.real and i == last_fft_idx:
                         x = _irfft_stage(self, cgrid, x, rest[0])
                     else:
-                        x = self._fftn(x, _fft_axes(cgrid, a, rest[0]),
+                        x = self._fftn(x, a, _fft_axes(cgrid, a, rest[0]),
                                        inverse=True)
                 else:
                     op = tr.transpose_y_to_x if a == 0 else tr.transpose_z_to_y
@@ -212,13 +253,12 @@ class DistributedFFT:
 
     # -- plane form (split_complex only) --------------------------------------------
     #
-    # The TPU-native spectral format is a PAIR of real planes (re, im): the
-    # MXU FFT contracts them directly, so chaining transforms through the
-    # interleaved (..., 2) form pays a re-interleave (a concatenate fusion +
-    # a layout copy, measured ~14% of a 256^3 c2c round trip on v5e;
-    # BENCH_NOTES.md r3).  Solvers and benchmarks that apply many transforms
-    # should carry (r, i) between calls; transposes run per plane, so the
-    # pair never materializes interleaved.
+    # The matmul FFT's spectral format is a PAIR of real planes (re, im):
+    # it contracts them directly, so chaining transforms through the
+    # interleaved (..., 2) form pays a re-interleave (a concatenate fusion
+    # + a layout copy).  Solvers that apply many transforms should carry
+    # (r, i) between calls; transposes run per plane, so the pair never
+    # materializes interleaved.
 
     def _require_planes(self):
         if not self.split_complex:
@@ -294,11 +334,12 @@ def _rfft_stage(plan, cgrid, x, global_axes):
         from cudecomp_tpu.ops import mxu_fft
         xh = mxu_fft.rfft_split(x, axis=x_dim)
     else:
-        xh = _complex_fft_1d(x, x_dim, "rfft")
+        # the real and complex X-pencils share their Y/Z sharding
+        xh = _local_fft(plan.grid, 0, x, "rfft", (x_dim,))
     # complex X-pencil buffer has X extent X//2+1 (same Y/Z decomposition)
     other = [a for a in global_axes if a != 0]
     if other:
-        xh = plan._fftn(xh, _fft_axes(cgrid, 0, other), inverse=False)
+        xh = plan._fftn(xh, 0, _fft_axes(cgrid, 0, other), inverse=False)
     return xh
 
 
@@ -307,14 +348,14 @@ def _irfft_stage(plan, cgrid, xh, global_axes):
     assert 0 in global_axes
     other = [a for a in global_axes if a != 0]
     if other:
-        xh = plan._fftn(xh, _fft_axes(cgrid, 0, other), inverse=True)
+        xh = plan._fftn(xh, 0, _fft_axes(cgrid, 0, other), inverse=True)
     inv = plan.grid.config.inv_mem_order(0)
     x_dim = inv[0]
     n = plan.grid.config.gdims[0]
     if plan.split_complex:
         from cudecomp_tpu.ops import mxu_fft
         return mxu_fft.irfft_split(xh, axis=x_dim, n=n)
-    return _complex_fft_1d(xh, x_dim, "irfft", n=n)
+    return _local_fft(plan.grid, 0, xh, "irfft", (x_dim,), n=n)
 
 
 def fft3d(grid, x, real: bool = False, split_complex: bool = False):
@@ -376,9 +417,9 @@ def autotune_fft(grid, real: bool = False, *, candidates=None,
     plan.  Trial times are cross-host reduced, so every process of a
     multi-controller deployment selects the same policy.
 
-    Default candidates: ``("high", True)`` (bf16x3 + Gauss — the fast
-    policy wherever its error fits the gate) and ``("highest", True)``
-    (full-f32 — always gate-safe for f32 data).
+    Default candidates: ``("high", True)`` (reduced-precision f32 dots +
+    Gauss — the fast policy wherever its error fits the gate) and
+    ``("highest", True)`` (full-f32 — always gate-safe for f32 data).
     """
     import numpy as np
     from cudecomp_tpu import performance as perf
@@ -388,7 +429,12 @@ def autotune_fft(grid, real: bool = False, *, candidates=None,
         candidates = (("high", True), ("highest", True))
 
     shape = grid.global_shape(0)
-    key = jax.random.PRNGKey(seed)
+    # the raw threefry key (what PRNGKey(seed) holds) is built on the host
+    # and placed on the grid's own devices: a plan for one mesh never
+    # dispatches on the process default backend
+    key = jax.device_put(np.asarray([0, seed], np.uint32),
+                         jax.sharding.NamedSharding(
+                             grid.mesh, jax.sharding.PartitionSpec()))
     # uneven decompositions carry padding slots the transpose pipeline
     # zeroes at repack; random data there would make every candidate
     # spuriously fail the gate, so the gate field is zero outside the

@@ -1,6 +1,6 @@
 """Halo (ghost-cell) exchange engine.
 
-TPU-native rebuild of ``cudecompUpdateHalos_`` (``include/internal/
+Rebuild of ``cudecompUpdateHalos_`` (``include/internal/
 halo.h:40-315``): per-axis, per-dim nearest-neighbor (+1/-1) exchange with
 optional periodic wrap, expressed as paired ``lax.ppermute`` shifts over the
 mesh axis that shards the dim.
@@ -35,7 +35,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from cudecomp_tpu import geometry
-from cudecomp_tpu.config import HaloMethod
 from cudecomp_tpu.geometry import _check_extents
 from cudecomp_tpu.parallel.collectives import shard_map_fn
 from cudecomp_tpu.utils.tracing import trace_range
@@ -192,13 +191,6 @@ def _dim_body(grid, axis, d, halo, periodic, inplace=False):
                                      inplace=inplace)
 
         name = grid.axis_names[pd]
-        if cfg.halo_method == HaloMethod.PALLAS:
-            from cudecomp_tpu.ops.pallas_kernels import halo_exchange_pallas
-            out = halo_exchange_pallas(local, name, P, h, m, i_d, periodic,
-                                       mesh=grid.mesh, splits=splits)
-            if out is not None:
-                return out
-            # platform without pallas RDMA: fall through to ppermute
         me = lax.axis_index(name)
         v = valid_extent()
 

@@ -1,32 +1,23 @@
-"""Ghost-plane stencil pipeline — the TPU-native redesign of the
-halo -> stencil consumer path.
+"""Ghost-plane stencil pipeline — the halo -> stencil consumer path.
 
 The reference's halo engine exists to serve stencil applications:
 exchange ghost cells into a halo'd buffer, then apply a local stencil
 (``include/internal/halo.h:40-315``; ``docs/basic_usage.rst`` halo
 discussion).  ``update_halos`` reproduces that buffer contract for API
-parity, but end-to-end measurement (BENCH_NOTES.md r4 "stencil
-pipeline") shows the halo'd-buffer format is the wrong performance
-shape on TPU: the minor-dim slab writes and the consumer's minor-dim
-shifted slices each lower as full relayout passes (21.9 ms/step for
-halo + 7-point stencil at 512^3 vs a ~2.6 ms streaming floor).
-
-This module is the performance path, re-designed for XLA/Mosaic:
+parity; this module is the functional form, with no persistent halo
+regions in the user's arrays:
 
 * state stays in the plain interior pencil layout (no halo regions);
-* width-1 ghost planes are exchanged as SEPARATE small arrays —
-  ``lax.ppermute`` shifts over the mesh axis that shards each dim,
-  local wrap-around slices for unsharded periodic dims, zeros at
-  non-periodic edges (``ppermute`` delivers zeros to ranks without a
-  source, which is exactly the Dirichlet-0 ghost convention);
-* the 7-point Laplacian is applied in ONE HBM pass by a Pallas kernel:
-  the grid walks x-plane blocks, the +/-x neighbor planes arrive as
-  extra one-plane BlockSpecs on the same array (edge blocks select the
-  ghost plane instead), and y/z neighbors are in-register rolls with
-  the ghost plane masked into the edge row/lane.
-
-Measured at 512^3 f32 on one chip: 4.2 ms/step vs 21.9 ms for the
-halo'd-buffer pipeline (BENCH_NOTES.md r4).
+* ghost planes are exchanged per shard — ``lax.ppermute`` shifts over
+  the mesh axis that shards each dim (NCCL send/recv on GPUs), local
+  wrap-around slices for unsharded periodic dims, zeros at non-periodic
+  edges (``ppermute`` delivers zeros to ranks without a source, which is
+  exactly the Dirichlet-0 ghost convention);
+* the stencil is a sum of shifted slices of the ghost-extended block,
+  which XLA fuses into one elementwise pass over the output; on GPU
+  meshes (float32, extents that tile) a Pallas kernel on the Triton
+  route computes it instead, wrapping local periodic dims by index so
+  only the other dims need ghost planes.
 """
 
 from __future__ import annotations
@@ -38,7 +29,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental import pallas as pl
 
 from cudecomp_tpu.parallel.collectives import shard_map_fn
 from cudecomp_tpu.utils.tracing import trace_range
@@ -65,107 +55,6 @@ def _local_extents(grid, axis: int) -> Tuple[int, int, int]:
                 f"uneven grids)")
         ext.append(g // P)
     return tuple(ext)
-
-
-def _exchange_ghosts(ul, spec, periods_mem, ndev_by_name):
-    """Per-shard ghost planes for each buffer dim: (lo, hi) pairs where
-    ``lo`` holds the left neighbor's high boundary plane.
-
-    Sharded dims exchange via paired ``lax.ppermute`` shifts (the wrap
-    pairs are dropped for non-periodic dims, and ppermute's
-    zero-for-no-source semantics gives Dirichlet-0 edge ghosts);
-    unsharded dims wrap locally (periodic) or take zero planes."""
-    ghosts = []
-    for d in range(3):
-        lo_slab = lax.slice_in_dim(ul, 0, 1, axis=d)            # my low plane
-        n = ul.shape[d]
-        hi_slab = lax.slice_in_dim(ul, n - 1, n, axis=d)        # my high plane
-        name = spec[d]
-        P = ndev_by_name.get(name, 1) if name is not None else 1
-        periodic = periods_mem[d]
-        if P == 1:
-            if periodic:
-                lo, hi = hi_slab, lo_slab
-            else:
-                lo, hi = jnp.zeros_like(lo_slab), jnp.zeros_like(hi_slab)
-        else:
-            fwd = [(j, (j + 1) % P) for j in range(P)]          # j -> j+1
-            bwd = [(j, (j - 1) % P) for j in range(P)]          # j -> j-1
-            if not periodic:
-                fwd = fwd[:-1]
-                bwd = bwd[1:]
-            # my hi plane travels right and becomes the neighbor's lo ghost
-            lo = lax.ppermute(hi_slab, name, fwd)
-            hi = lax.ppermute(lo_slab, name, bwd)
-        ghosts.extend([lo, hi])
-    return ghosts
-
-
-def _kernel_eligible(ext, dtype, interpret: bool) -> bool:
-    mx, my, mz = ext
-    if interpret:
-        return True
-    if jax.default_backend() in ("cpu", "gpu"):
-        return False
-    if np.dtype(dtype) != np.float32:
-        return False
-    # clean (8, 128) tiling and at least two x-blocks
-    return my % 8 == 0 and mz % 128 == 0 and mx % 8 == 0 and mx >= 16
-
-
-def _pick_bx(mx: int, plane_bytes: int = 0,
-             cap_bytes: int = 8 * 1024 * 1024) -> int:
-    """Largest x-block <= 16 planes dividing the local extent whose block
-    stays under ``cap_bytes`` (measured: 4.21/4.28/4.47 ms at Bx=16/8/4
-    at 512^3 — flat — but the 16-plane block's kernel blows the 100 MB
-    Mosaic scoped-vmem stack once the ghost refs and select temporaries
-    are added; dense 27-tap kernels crash the remote Mosaic compiler
-    outright at 8 MB blocks and need the 4 MB cap)."""
-    for bx in (16, 8, 4, 2, 1):
-        if mx % bx == 0 and bx * max(plane_bytes, 1) <= cap_bytes:
-            return bx
-    return 1
-
-
-def _ghost_plane_call(kernel_body, ul, ghosts, ext, bx, wrap, interpret):
-    """Shared pallas_call scaffold for one-pass ghost-plane stencil
-    kernels: x-block grid with periodically-wrapped prev/next plane
-    BlockSpecs on the same array, per-dim ghost refs for non-wrap dims
-    (``wrap[d]`` drops that dim's ghost refs — the unused exchange slices
-    are dead code XLA eliminates), and the raised Mosaic vmem limit."""
-    from jax.experimental.pallas import tpu as pltpu
-    mx, my, mz = ext
-    nbx = mx // bx
-    params = {}
-    if not interpret:
-        params["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024)
-    gxlo, gxhi, gylo, gyhi, gzlo, gzhi = ghosts
-    ghost_specs, ghost_args = [], []
-    if not wrap[0]:
-        ghost_specs += [pl.BlockSpec((1, my, mz), lambda i: (0, 0, 0))] * 2
-        ghost_args += [gxlo, gxhi]
-    if not wrap[1]:
-        ghost_specs += [pl.BlockSpec((bx, 1, mz), lambda i: (i, 0, 0))] * 2
-        ghost_args += [gylo, gyhi]
-    if not wrap[2]:
-        ghost_specs += [pl.BlockSpec((bx, my, 1), lambda i: (i, 0, 0))] * 2
-        ghost_args += [gzlo, gzhi]
-    return pl.pallas_call(
-        kernel_body,
-        grid=(nbx,),
-        in_specs=[
-            pl.BlockSpec((bx, my, mz), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, my, mz),
-                         lambda i, bx=bx, mx=mx: ((i * bx - 1) % mx, 0, 0)),
-            pl.BlockSpec((1, my, mz),
-                         lambda i, bx=bx, mx=mx: (((i + 1) * bx) % mx, 0, 0)),
-        ] + ghost_specs,
-        out_specs=pl.BlockSpec((bx, my, mz), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct(ul.shape, ul.dtype),
-        interpret=interpret,
-        **params,
-    )(ul, ul, ul, *ghost_args)
 
 
 def _extend_dim(ul, d, w, name, P, periodic):
@@ -209,9 +98,9 @@ def halo_map(grid, u, fn, axis: int = 0, width=1,
     abstractly via ``jax.eval_shape``.  Non-periodic edges see zero
     ghosts (Dirichlet); sharded extents must divide evenly.
 
-    This is the generic escape hatch behind :func:`laplacian7` — use it
-    for higher-order or anisotropic stencils; the 7-point Laplacian gets
-    the fused one-pass Pallas kernel instead.
+    This is the engine behind :func:`stencil_apply` and
+    :func:`laplacian7`; use it directly for higher-order or anisotropic
+    stencils.
     """
     cfg = grid.config
     if axis not in (0, 1, 2):
@@ -279,66 +168,6 @@ def halo_map(grid, u, fn, axis: int = 0, width=1,
                             out_specs=out_spec)(u)
 
 
-def _stencil27_kernel(cur_ref, prev_ref, next_ref, *refs,
-                      nbx, my, mz, taps, wrap):
-    """One-pass weighted 3x3x3 stencil on an x-plane block.
-
-    Dims in ``wrap`` mode (local AND periodic) shift by in-register
-    rolls — corner combinations among wrap dims compose for free.  The
-    x dim additionally supports ghost mode at any tap (its ghost plane
-    rides inside the block concat, so wrap-dim y/z rolls of corner taps
-    shift it correctly).  Ghost-mode y/z dims are supported for PURE
-    face taps only (single nonzero offset — the ghost plane of ``cur``
-    is the right select value only when no other shift applies); the
-    dispatch excludes everything else.  ``taps`` is a static tuple of
-    ((dx, dy, dz), weight) with zero weights already dropped."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    refs = list(refs)
-    out_ref = refs.pop()
-    i = pl.program_id(0)
-    cur = cur_ref[...]
-    prev, nxt = prev_ref[...], next_ref[...]
-    if not wrap[0]:
-        gxlo, gxhi = refs.pop(0), refs.pop(0)
-        prev = jnp.where(i == 0, gxlo[...], prev)
-        nxt = jnp.where(i == nbx - 1, gxhi[...], nxt)
-    gy = None if wrap[1] else (refs.pop(0), refs.pop(0))
-    gz = None if wrap[2] else (refs.pop(0), refs.pop(0))
-    used_dx = {dx for (dx, _, _), _ in taps}
-    bases = {0: cur}
-    if -1 in used_dx:
-        bases[-1] = jnp.concatenate([prev, cur[:-1]], axis=0)
-    if +1 in used_dx:
-        bases[+1] = jnp.concatenate([cur[1:], nxt], axis=0)
-
-    # NO shifted-term memoization: caching the up-to-26 shifted blocks
-    # keeps them all live and blows the Mosaic scoped-vmem stack at
-    # 512^3; recomputed rolls are cheap VPU work and each temporary dies
-    # into the accumulator immediately
-    def shift(dx, dy, dz):
-        v = bases[dx]
-        if dy:
-            v = pltpu.roll(v, 1 if dy < 0 else my - 1, 1)
-            if gy is not None:
-                iy = lax.broadcasted_iota(jnp.int32, v.shape, 1)
-                v = jnp.where(iy == (0 if dy < 0 else my - 1),
-                              gy[0 if dy < 0 else 1][...], v)
-        if dz:
-            v = pltpu.roll(v, 1 if dz < 0 else mz - 1, 2)
-            if gz is not None:
-                iz = lax.broadcasted_iota(jnp.int32, v.shape, 2)
-                v = jnp.where(iz == (0 if dz < 0 else mz - 1),
-                              gz[0 if dz < 0 else 1][...], v)
-        return v
-
-    out = None
-    for (dx, dy, dz), w in taps:
-        term = w * shift(dx, dy, dz)
-        out = term if out is None else out + term
-    out_ref[...] = out if out is not None else jnp.zeros_like(cur)
-
-
 def stencil_apply(grid, u, weights, axis: int = 0,
                   halo_periods=(True, True, True)):
     """Apply an arbitrary compact 3x3x3 stencil to a halo-free pencil
@@ -353,16 +182,11 @@ def stencil_apply(grid, u, weights, axis: int = 0,
     indexed by GLOBAL dims, matching ``update_halos``.
 
     ``weights`` must be a static host array; zero taps cost nothing.
-    The stencil runs as ONE fused Pallas HBM pass whenever every tap is
-    servable: wrap-mode dims (local + periodic) compose freely — corner
-    taps included — and ghost-mode (sharded or non-periodic) dims are
-    servable for x at any tap and for y/z at pure face taps.  In
-    particular every FACE-ONLY tap set (7-point Laplacians, anisotropic
-    differences) fuses on ANY mesh; dense corner sets fuse when y/z are
-    local+periodic.  Everything else falls back to the ghost-extended
-    :func:`halo_map` form, correct everywhere.  This generalizes
-    :func:`laplacian7` to any 27-point kernel (smoothers, biased
-    differences, 27-point Laplacians).
+    The stencil runs on the ghost-extended :func:`halo_map` form: one
+    ghost exchange, then the weighted sum of shifted slices, which XLA
+    fuses into one pass.  This generalizes :func:`laplacian7` to any
+    27-point kernel (smoothers, biased differences, 27-point
+    Laplacians).
 
     Differentiable: the VJP of a linear stencil is the stencil with
     reflected offsets (``w[-o]``) — exact for periodic wrap and for
@@ -397,9 +221,70 @@ def _stencil_apply_fn(grid, axis, periods, w_bytes: bytes):
     return f
 
 
-def _stencil_apply_impl(grid, u, w, axis, periods):
-    from cudecomp_tpu.ops.pallas_kernels import _interpret_env
+def _pow2_divisor(n: int, cap: int) -> int:
+    """Largest power of two <= cap dividing n."""
+    b = 1
+    while b * 2 <= cap and n % (b * 2) == 0:
+        b *= 2
+    return b
 
+
+def _kernel_tiles(ext):
+    """(by, bz) output tile of the GPU stencil kernel for local extents
+    ``ext``, or None when the extents do not tile (Triton blocks are powers
+    of two): bz up to 512 along the contiguous dim, by * bz <= 4096."""
+    _, my, mz = ext
+    bz = _pow2_divisor(mz, 512)
+    if bz < 32:
+        return None
+    return _pow2_divisor(my, max(1, 4096 // bz)), bz
+
+
+def _stencil_kernel(u_ref, o_ref, *, taps, ext, wrap, by, bz):
+    """One (by, bz) output tile of plane i: each tap is one load of the
+    shifted tile, served from L1/L2 after its first touch.  Wrap dims
+    index the unextended block modulo its extent; the other dims read a
+    block extended by one ghost plane on each side."""
+    import jax.experimental.pallas as pl
+    mx, my, mz = ext
+    i, j, k = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    rows = j * by + jnp.arange(by)
+    cols = k * bz + jnp.arange(bz)
+    acc = jnp.zeros((by, bz), jnp.float32)
+    for (dx, dy, dz), wv in taps:
+        xi = (i + dx) % mx if wrap[0] else i + 1 + dx
+        yi = (rows + dy) % my if wrap[1] else rows + 1 + dy
+        zi = (cols + dz) % mz if wrap[2] else cols + 1 + dz
+        acc = acc + wv * u_ref[xi, yi[:, None], zi[None, :]]
+    o_ref[i, pl.ds(j * by, by), pl.ds(k * bz, bz)] = acc
+
+
+def _stencil_kernel_call(ue, taps, ext, wrap, interpret=False):
+    """Pallas call (Triton route) of :func:`_stencil_kernel` on one shard:
+    ``ue`` is the local block, extended by one plane on each side of every
+    non-wrap dim; returns the (mx, my, mz) output block."""
+    import jax.experimental.pallas as pl
+    from jax.experimental.pallas import triton as plt
+    by, bz = _kernel_tiles(ext)
+    mx, my, mz = ext
+    kernel = partial(_stencil_kernel, taps=taps, ext=ext, wrap=wrap, by=by,
+                     bz=bz)
+    return pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(ext, ue.dtype),
+        grid=(mx, my // by, mz // bz),
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret)(ue)
+
+
+def _use_stencil_kernel(grid, ext, dtype) -> bool:
+    """The GPU kernel serves float32 blocks on GPU meshes whose extents
+    tile; everything else takes the XLA shifted-slice form."""
+    return (grid.mesh.devices.flat[0].platform == "gpu"
+            and np.dtype(dtype) == np.float32
+            and _kernel_tiles(ext) is not None)
+
+
+def _stencil_apply_impl(grid, u, w, axis, periods):
     if len(periods) != 3:
         raise ValueError("halo_periods must have length 3")
     if axis not in (0, 1, 2):
@@ -412,57 +297,26 @@ def _stencil_apply_impl(grid, u, w, axis, periods):
             f"stencil_apply: input shape {tuple(u.shape)} does not match "
             f"the halo-free pencil layout {expected}")
 
-    cfg = grid.config
     ext = _local_extents(grid, axis)
-    order = cfg.mem_order(axis)
-    periods_mem = tuple(periods[order[d]] for d in range(3))
-    spec = grid.spec(axis)
-    ndev_by_name = dict(grid.mesh.shape)
-    local = tuple(
-        (spec[d] is None or ndev_by_name.get(spec[d], 1) == 1)
-        for d in range(3))
-    interpret = _interpret_env()
-
     taps = tuple(
         ((dx, dy, dz), float(w[1 + dx, 1 + dy, 1 + dz]))
         for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
         if w[1 + dx, 1 + dy, 1 + dz] != 0.0)
 
-    wrap = tuple(local[d] and periods_mem[d] for d in range(3))
+    if taps and _use_stencil_kernel(grid, ext, u.dtype):
+        # local periodic dims wrap inside the kernel; only the others
+        # are extended by ghost planes (exchanged by halo_map)
+        order = grid.config.mem_order(axis)
+        spec = grid.spec(axis)
+        wrap = tuple(periods[order[d]] and (
+            spec[d] is None or grid.mesh.shape[spec[d]] == 1)
+            for d in range(3))
+        return halo_map(grid, u,
+                        partial(_stencil_kernel_call, taps=taps, ext=ext,
+                                wrap=wrap),
+                        axis, tuple(0 if wr else 1 for wr in wrap), periods)
 
-    def tap_ok(dx, dy, dz):
-        # wrap dims compose freely (rolls), and an x-ghost plane rides
-        # inside the block concat so wrap-dim rolls shift it too; a
-        # GHOST-mode y/z dim is only servable by a select of cur's own
-        # ghost plane, which is correct only for pure face taps
-        nz = [d for d, o in enumerate((dx, dy, dz)) if o]
-        gyz = [d for d in nz if d in (1, 2) and not wrap[d]]
-        return not gyz or (len(gyz) == 1 and len(nz) == 1)
-
-    kernel_ok = (all(tap_ok(*off) for off, _ in taps)
-                 and _kernel_eligible(ext, u.dtype, interpret))
-    if kernel_ok:
-        mx, my, mz = ext
-
-        def local_fn(ul):
-            ghosts = _exchange_ghosts(ul, spec, periods_mem,
-                                      ndev_by_name)
-            # >7 taps: halve the block cap — the dense 27-tap kernel at
-            # 8 MB blocks crashes the remote Mosaic compiler (HTTP 500),
-            # while 4 MB blocks compile and run at 7.2 ms/512^3
-            # (BENCH_NOTES.md r4 "stencil_apply")
-            cap = (8 if len(taps) <= 7 else 4) * 1024 * 1024
-            bx = _pick_bx(mx, my * mz * ul.dtype.itemsize, cap)
-            body = partial(_stencil27_kernel, nbx=mx // bx, my=my, mz=mz,
-                           taps=taps, wrap=wrap)
-            return _ghost_plane_call(body, ul, ghosts, ext, bx, wrap,
-                                     interpret)
-
-        with trace_range(f"cudecomp_tpu.stencil_apply_axis{axis}"):
-            return shard_map_fn(local_fn, grid.mesh, in_specs=(spec,),
-                                out_specs=spec)(u)
-
-    # generic fallback: ghost-extended shards + shifted-slice sum
+    # ghost-extended shards + shifted-slice sum
     def fn(ue):
         out = None
         for (dx, dy, dz), wv in taps:
@@ -488,13 +342,8 @@ def _diff_apply_fn(grid, axis, periods, alpha, beta):
     clear_plan_caches` has a concrete cache to drop (the underlying
     compiled programs live in ``_stencil_apply_fn``'s cache).
 
-    The unification was gated on hardware, not done blind: the
-    stencil_apply-routed 7-tap form ties the formerly-specialized fused
-    kernel on-chip (4.267 vs 4.259 ms/step at 512^3 f32,
-    ``scripts/tune_unify_stencil.py``, BENCH_NOTES.md r4) — face-only tap
-    sets keep the 8 MB block cap and lower to the same one-pass
-    rolls+selects kernel.  The operator is self-adjoint, so
-    ``_stencil_apply_fn``'s reflected-tap VJP reuses the same apply.
+    The operator is self-adjoint, so ``_stencil_apply_fn``'s
+    reflected-tap VJP reuses the same apply.
     """
     w = np.zeros((3, 3, 3), np.float64)
     for d in range(3):
@@ -510,8 +359,8 @@ def laplacian7(grid, u, axis: int = 0, halo_periods=(True, True, True)):
     """7-point Laplacian of a halo-free pencil array (unit grid spacing).
 
     The fused ghost-plane alternative to ``update_halos`` + a shifted-
-    slice stencil: one collective round for the boundary planes, one HBM
-    pass for the stencil (Pallas on TPU; XLA ghost-plane form elsewhere).
+    slice stencil: one collective round for the boundary planes, one
+    fused pass for the stencil.
     Non-periodic edges use zero (Dirichlet) ghost planes.  Differentiable
     (self-adjoint custom VJP — the backward pass is one fused apply too).
     """
@@ -525,11 +374,10 @@ def diffusion_step(grid, u, dt, axis: int = 0,
     """One fused explicit diffusion step ``u + dt * lap(u)``.
 
     Same pipeline as :func:`laplacian7` with the axpy folded into the
-    kernel's single pass (measured 4.4 ms/step at 512^3 f32 on one v5e
-    chip vs 21.9 ms for halo'd-buffer + XLA stencil; BENCH_NOTES.md r4).
-    Differentiable; a traced (non-static) ``dt`` falls back to the
-    two-pass ``u + dt * laplacian7(u)`` composition, since the fused
-    kernel is specialized per static coefficient pair.
+    stencil weights (centre ``1 - 6 dt``).  Differentiable; a traced
+    (non-static) ``dt`` takes the two-pass ``u + dt * laplacian7(u)``
+    composition, since the weights are specialized per static
+    coefficient pair.
     """
     periods = tuple(bool(p) for p in halo_periods)
     with trace_range(f"cudecomp_tpu.diffusion_step_axis{axis}"):

@@ -13,6 +13,9 @@ Supported variables:
   CUDECOMP_TPU_AUTOTUNE_P_COL_RANGE="lo,hi"   clamp process-grid cols
   CUDECOMP_TPU_FFT_DIRECT_THRESHOLD           dense-DFT cutoff (mxu_fft)
   CUDECOMP_TPU_FFT_FACTORS="1024=128x8,..."   per-size factor overrides
+
+JAX's own ``JAX_COMPILATION_CACHE_DIR`` is honoured by the entry scripts
+(see :func:`use_compile_cache`); the library never sets a cache itself.
 """
 
 from __future__ import annotations
@@ -64,3 +67,24 @@ def int_range(env_name: str) -> Optional[Tuple[int, int]]:
     except ValueError:
         log_warn(f"could not parse {env_name}={spec!r}; expected 'lo,hi'")
         return None
+
+
+def use_compile_cache(root: Optional[str] = None) -> str:
+    """Point JAX's persistent compilation cache at a fixed directory, for
+    entry scripts (``chip_smoke.py``, ``bench.py``, ``bench_full.py``).
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses it and
+    nothing is changed.  Otherwise the cache goes to ``<root>/.jax_cache``,
+    ``root`` defaulting to the checkout that holds this package — a fixed
+    path, since the path is part of the cache key.  Returns the directory
+    in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+    path = os.path.join(root, ".jax_cache")
+    import jax
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

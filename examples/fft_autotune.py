@@ -27,7 +27,7 @@ def main():
     print(f"autotuned pdims={grid.pdims} method="
           f"{grid.config.transpose_method.value}")
 
-    # split-complex (MXU matmul FFT): works with or without complex support
+    # split-complex (matmul FFT): works with or without complex support
     plan = DistributedFFT(grid=grid, split_complex=True)
     x = jax.device_put(
         jax.random.normal(jax.random.PRNGKey(0), cfg.gdims + (2,),
@@ -47,7 +47,7 @@ def main():
     print(f"one direction: {dt*1e3:.2f} ms  ({gflops:.1f} GFLOPS)")
 
     # plan-level policy autotuning: gate-check + time each (precision,
-    # gauss) MXU policy and pin the fastest passing one into the plan
+    # gauss) matmul-FFT policy and pin the fastest passing one into the plan
     res = cd.autotune_fft(grid, n_warmup=1, n_trials=2, iters=4)
     print(res.report())
 

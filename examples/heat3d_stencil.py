@@ -1,20 +1,19 @@
 """3D heat-equation stencil on a pencil decomposition — the halo engine
 inside a REAL consumer pipeline.
 
-The isolated ``update_halos`` headline (8.09 ms at 512^3 width-1 on one
-chip, BENCH_FULL.json) pays full-buffer materializations a real stencil
-pipeline never sees: when the halo write feeds a fused consumer, XLA
-schedules the slab exchange inside the step program.  This example runs
+An isolated ``update_halos`` call pays full-buffer materializations a
+real stencil pipeline never sees: when the halo write feeds a fused
+consumer, XLA schedules the slab exchange inside the step program.  This
+example runs
 explicit 7-point Laplacian diffusion on a periodic box,
 
     u_{t+1} = u_t + dt * lap(u_t),
 
 two ways — the halo'd-buffer pipeline (``update_halos`` + shifted-slice
 stencil, the reference's architecture) and the library's fused
-ghost-plane pipeline (``cd.diffusion_step``, one Pallas HBM pass; see
+ghost-plane pipeline (``cd.diffusion_step``; see
 ``cudecomp_tpu/ops/stencil.py``) — verifies both against a numpy
-reference, and (on a single chip) benchmarks them side by side.
-Measured at 512^3 f32: 4.4 vs 21.9 ms/step (BENCH_NOTES.md r4).
+reference, and (on a single accelerator) times them side by side.
 
 Reference analog: cuDecomp validates its halo machinery with halo_tests
 (``tests/ctest/halo_tests.cc``) and documents halo exchange for stencil
@@ -118,8 +117,8 @@ def main(N=64, steps=10, dt=0.1):
     assert err < 1e-4, err
     assert e1 < e0
 
-    # the fused ghost-plane pipeline (ops/stencil.py): interior layout,
-    # no halo buffer, one Pallas pass per step on TPU
+    # the ghost-plane pipeline (ops/stencil.py): interior layout, no
+    # halo buffer
     ui = cd.scatter_global(grid, blob, 0)
 
     @jax.jit
@@ -133,15 +132,15 @@ def main(N=64, steps=10, dt=0.1):
     print(f"  ghost-plane pipeline:   max err vs numpy: {err_g:.3g}")
     assert err_g < 1e-4, err_g
 
-    # single-chip marginal halo cost: (halo + stencil) vs stencil-only,
-    # forced-completion scanned timing (BENCH_NOTES.md methodology)
-    if n_dev == 1 and jax.default_backend() not in ("cpu",):
+    # single-device marginal halo cost: (halo + stencil) vs stencil-only,
+    # forced-completion scanned timing
+    if n_dev == 1 and jax.devices()[0].platform != "cpu":
         iters = 32
         cases = (
             ("halo+stencil (concat form)", step, u),
             ("halo+stencil (DUS form)", make_step(grid, dt, donate=True), u),
             ("stencil-only", make_step(grid, dt, with_halo=False), u),
-            ("ghost-plane diffusion_step (Pallas)",
+            ("ghost-plane diffusion_step",
              lambda v: cd.diffusion_step(grid, v, dt, 0, PERIODS), ui),
         )
         for label, fn, x0 in cases:

@@ -1,12 +1,11 @@
 """AOT-compile the reference-headline-scale programs on a multichip mesh.
 
-The reference's headline table is a 2048^3 benchmark on 8 GPUs and
-BASELINE.md's north-star is a 1024^3 c2c FFT on a v5p-16 mesh.  Real
-multi-chip hardware is not available in this environment, so this script
-proves the next-best property: the FULL production programs — the
-plane-carried c2c FFT round trip and the 4-op transpose cycle — lower
-and compile through XLA at 1024^3 (and optionally 2048^3) over a
-multi-device mesh, with every exchange riding real collectives.
+The reference's headline table is a 2048^3 benchmark on 8 GPUs.  This
+script checks, without any accelerator, that the production programs —
+the r2c FFT round trip and the 4-op transpose cycle — lower and compile
+through XLA at 1024^3 (and optionally 2048^3) over a multi-device mesh,
+with every exchange riding real collectives, and reports XLA's memory
+analysis per device.
 
 Compile-only (jit(...).lower(shapes).compile()): no 4 GiB buffers are
 materialized and nothing executes, so this runs on the CPU virtual mesh.
@@ -38,7 +37,7 @@ def main(N=1024, pr=2, pc=4):
     assert len(devices) == pr * pc, devices
     cfg = cd.GridConfig(gdims=(N, N, N), pdims=(pr, pc))
     grid = cd.make_grid(cfg, devices=devices)
-    rplan = DistributedFFT(grid=grid, real=True, split_complex=True)
+    rplan = DistributedFFT(grid=grid, real=True)
 
     shape = grid.global_shape(0)
     xspec = jax.ShapeDtypeStruct(shape, jnp.float32,
@@ -46,7 +45,7 @@ def main(N=1024, pr=2, pc=4):
 
     @jax.jit
     def fft_cycle(v):
-        return rplan.inverse_planes(rplan.forward_planes(v))
+        return rplan.inverse(rplan.forward(v))
 
     @jax.jit
     def transpose_cycle(v):

@@ -1,7 +1,7 @@
 """Taylor-Green validation against the reference's literature data.
 
 Runs the spectral TG solver at Re=1600 (the reference configuration,
-examples/cc/taylor_green/README.md:8-21) on the chip, samples kinetic
+examples/cc/taylor_green/README.md:8-21) on one device, samples kinetic
 energy / enstrophy every 0.1 flow-time units (the cadence of the
 reference's own output, data/tg_n512_output.txt), writes the curves to
 CSV, and quantifies the deviation against:
@@ -15,7 +15,10 @@ with the resolution-mismatch caveat: this run is at N^3 (64/128/256), so
 deviations near the dissipation peak (t ~ 9) measure RESOLUTION, not
 solver correctness — the same N-dependence the van Rees paper shows.
 
-    python scripts/validate_tg.py [N] [t_end]
+    TG_REFERENCE_DATA=<cuDecomp checkout>/examples/cc/taylor_green/data \
+        python scripts/validate_tg.py [N] [t_end]
+
+The reference data files ship with NVIDIA/cuDecomp, not with this repo.
 """
 
 import os
@@ -29,7 +32,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-REF_DATA = "/root/reference/examples/cc/taylor_green/data"
+REF_DATA = os.environ.get("TG_REFERENCE_DATA", "")
 
 
 def load_gdiag(path=os.path.join(REF_DATA, "spectral_Re1600_512.gdiag")):
@@ -71,7 +74,7 @@ def main(N=128, t_end=20.0, sample_dt=0.1, out_csv=None):
 
     cfg = GridConfig(gdims=(N, N, N), pdims=(1, 1))
     grid = cd.make_grid(cfg, devices=jax.devices()[:1])
-    solver = TaylorGreenSolver(grid=grid, nu=1.0 / re, split_complex=True)
+    solver = TaylorGreenSolver(grid=grid, nu=1.0 / re)
     uh, f = solver.setup()
 
     @jax.jit

@@ -2,7 +2,8 @@
 
 The multi-device analog of the reference's 4-rank MPI test harness
 (``tests/ctest/CMakeLists.txt:102-115``): all collective paths run on a
-virtual CPU mesh; the same code runs unchanged on real TPU meshes.
+virtual CPU mesh; the same code runs unchanged on GPU meshes.  Tests
+that need a GPU carry the ``gpu`` marker and skip here.
 
 Note: jax may already be imported (pytest plugins) and JAX_PLATFORMS may
 point at a real accelerator, so we force the platform via jax.config (works

@@ -71,7 +71,7 @@ def test_backend_enum_mapping():
                    TransposeMethod.RING_PIPELINED),
                   (cc.CUDECOMP_TRANSPOSE_COMM_NCCL, TransposeMethod.RING_XOR),
                   (cc.CUDECOMP_TRANSPOSE_COMM_NVSHMEM,
-                   TransposeMethod.PALLAS_A2A)]:
+                   TransposeMethod.ALL_TO_ALL)]:
         config = cc.cudecompGridDescConfigSetDefaults()
         config.gdims = (8, 8, 8)
         config.pdims = (2, 2)
@@ -84,7 +84,33 @@ def test_backend_enum_mapping():
     config.pdims = (2, 2)
     config.halo_comm_backend = cc.CUDECOMP_HALO_COMM_NVSHMEM
     g = cc.cudecompGridDescCreate(None, config, devices=jax.devices()[:4])
-    assert g.config.halo_method == HaloMethod.PALLAS
+    assert g.config.halo_method == HaloMethod.PPERMUTE
+
+
+@pytest.mark.parametrize("name,kind,method", [
+    ("CUDECOMP_TRANSPOSE_COMM_NVSHMEM", "transpose",
+     TransposeMethod.ALL_TO_ALL),
+    ("CUDECOMP_TRANSPOSE_COMM_NVSHMEM_SM", "transpose",
+     TransposeMethod.ALL_TO_ALL),
+    ("CUDECOMP_TRANSPOSE_COMM_NVSHMEM_PL", "transpose",
+     TransposeMethod.RING_PIPELINED),
+    ("CUDECOMP_HALO_COMM_NVSHMEM", "halo", HaloMethod.PPERMUTE),
+    ("CUDECOMP_HALO_COMM_NVSHMEM_BLOCKING", "halo", HaloMethod.PPERMUTE),
+])
+def test_nvshmem_backends_map_to_nccl_collectives(name, kind, method):
+    # device-initiated NVSHMEM puts have no JAX route: each NVSHMEM backend
+    # runs on the NCCL-backed collective that plays its role
+    config = cc.cudecompGridDescConfigSetDefaults()
+    config.gdims = (8, 8, 8)
+    config.pdims = (2, 2)
+    if kind == "transpose":
+        config.transpose_comm_backend = getattr(cc, name)
+    else:
+        config.halo_comm_backend = getattr(cc, name)
+    g = cc.cudecompGridDescCreate(None, config, devices=jax.devices()[:4])
+    got = (g.config.transpose_method if kind == "transpose"
+           else g.config.halo_method)
+    assert got == method
 
 
 def test_autotune_copies_config_back():

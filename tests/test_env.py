@@ -95,3 +95,41 @@ def test_every_env_var_documented():
         f"undocumented env vars: {sorted(in_code - documented)}")
     assert documented - in_code == set(), (
         f"stale documented env vars: {sorted(documented - in_code)}")
+
+
+def test_compile_cache_env_wins(monkeypatch, tmp_path):
+    # with JAX_COMPILATION_CACHE_DIR set, JAX already uses it: the helper
+    # returns it and changes no setting
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    assert E.use_compile_cache() == str(tmp_path / "c")
+    assert calls == []
+
+
+def test_compile_cache_default_under_checkout(monkeypatch):
+    # without the env var the cache lands in <checkout>/.jax_cache
+    from pathlib import Path
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    root = Path(__file__).resolve().parent.parent
+    path = E.use_compile_cache()
+    assert path == str(root / ".jax_cache")
+    assert calls == [("jax_compilation_cache_dir", path)]
+    assert E.use_compile_cache(root="/some/dir") == "/some/dir/.jax_cache"
+
+
+def test_compile_cache_path_is_fixed(monkeypatch):
+    # the path is part of the cache key: never a temporary name, a pid or
+    # a time, and the same on every call
+    import tempfile
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax.config, "update", lambda *a: None)
+    a, b = E.use_compile_cache(), E.use_compile_cache()
+    assert a == b
+    assert not a.startswith(tempfile.gettempdir())
+    assert str(os.getpid()) not in a
+    assert os.path.basename(a) == ".jax_cache"

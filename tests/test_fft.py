@@ -205,7 +205,7 @@ def test_bf16_carry_roundtrip(monkeypatch):
 def test_plane_form_matches_interleaved_c2c(pdims):
     # forward_planes/inverse_planes must produce bit-identical math to the
     # interleaved (..., 2) form — the plane form only removes the
-    # stack/slice boundary (BENCH_NOTES.md r3 "plane carry")
+    # stack/slice boundary
     grid = make_grid_for((8, 12, 16), pdims)
     plan = DistributedFFT(grid=grid, split_complex=True)
     x = RNG.standard_normal((8, 12, 16, 2)).astype(np.float64)
@@ -320,3 +320,47 @@ def test_autotune_fft_uneven_decomposition():
     res = cd.autotune_fft(grid, real=True, n_warmup=1, n_trials=1, iters=2)
     assert any(t.gate_passed for t in res.trials)
     assert res.plan.precision in ("high", "highest")
+
+
+def test_matmul_complex_keyed_on_mesh_platform():
+    # the FFT engine follows the platform of the plan's mesh, not the
+    # process default backend: a CPU mesh takes the matmul core, a GPU
+    # mesh the XLA FFT op (cuFFT)
+    from types import SimpleNamespace
+    from cudecomp_tpu.ops.fft import _use_matmul_complex
+
+    def mesh_of(platform):
+        dev = SimpleNamespace(platform=platform)
+        return SimpleNamespace(devices=np.array([dev], dtype=object))
+
+    assert _use_matmul_complex(mesh_of("cpu")) is True
+    assert _use_matmul_complex(mesh_of("gpu")) is False
+    grid = make_grid_for((8, 8, 8), (2, 2))
+    assert _use_matmul_complex(grid.mesh) is True
+
+
+def test_autotune_fft_stays_on_grid_devices(monkeypatch):
+    # the search data is made on the grid's own devices: no key is built
+    # on the process default device, and the trial data lands sharded
+    # over the grid's mesh
+    import cudecomp_tpu as cd
+
+    def no_default_key(*a, **k):
+        raise AssertionError("PRNGKey built on the default device")
+
+    monkeypatch.setattr(jax.random, "PRNGKey", no_default_key)
+    grid = make_grid_for((8, 8, 8), (2, 2))
+    res = cd.autotune_fft(grid, candidates=(("highest", True),),
+                          n_warmup=0, n_trials=1, iters=1)
+    assert res.trials[0].gate_passed
+
+
+def test_spectral_fields_replicated_on_plan_mesh():
+    # eager operator fields live on every device of the plan's mesh, not
+    # on the default device alone
+    import cudecomp_tpu as cd
+    grid = make_grid_for((8, 8, 8), (2, 2))
+    sops = cd.SpectralOperators(plan=cd.DistributedFFT(grid=grid))
+    for k in sops.wavenumbers():
+        assert {s.device for s in k.addressable_shards} == set(
+            grid.mesh.devices.flat)

@@ -1,5 +1,5 @@
 """Compile-level checks: the engine must lower to the intended XLA
-collectives — the TPU-native analog of asserting the reference called the
+collectives — the analog of asserting the reference called the
 right backend primitive (NCCL grouped send/recv vs MPI_Alltoall etc.).
 
 These inspect optimized HLO text, so they catch regressions like a slab
@@ -117,3 +117,28 @@ def test_fft_roundtrip_collective_budget():
     hlo = jax.jit(fn).lower(x).compile().as_text()
     assert count(hlo, "all-to-all") == 4
     assert count(hlo, "collective-permute") == 0
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("pdims", [(2, 2), (1, 4)])
+def test_fft_stages_stay_local(real, pdims, monkeypatch):
+    # the XLA FFT op (the GPU path, forced here on the CPU mesh) runs per
+    # shard: the forward lowers to the transposes' all-to-alls and never
+    # gathers the array onto one device
+    from cudecomp_tpu.ops import fft as F
+    monkeypatch.setattr(F, "_use_matmul_complex", lambda mesh: False)
+    grid = make((16, 16, 8), pdims)
+    plan = cd.DistributedFFT(grid=grid, real=real)
+    dtype = np.float32 if real else np.complex64
+    x = jax.device_put(np.zeros(grid.global_shape(0), dtype),
+                       grid.sharding(0))
+    hlo = jax.jit(plan.forward).lower(x).compile().as_text()
+    assert count(hlo, "all-gather") == 0
+    assert count(hlo, "all-to-all") >= 1
+    f = np.random.default_rng(1).standard_normal((16, 16, 8))
+    f = f.astype(np.float32) if real else (f + 1j * f[::-1]).astype(dtype)
+    got = cd.gather_global(plan.complex_grid,
+                           plan.forward(cd.scatter_global(grid, f, 0)), 2)
+    ref = (np.fft.fftn(np.fft.rfft(f, axis=0), axes=(1, 2)) if real
+           else np.fft.fftn(f))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)

@@ -94,3 +94,37 @@ def test_embedding_in_larger_training_mesh():
     gb = cd.gather_global(grid, yb[1], 1)
     np.testing.assert_allclose(ga, cd.gather_global(grid, y_ref, 1))
     np.testing.assert_allclose(gb, 2.0 * cd.gather_global(grid, y_ref, 1))
+
+
+class _GpuLikeDev:
+    """A GPU device stub: GPUs report no meaningful slice, so the host
+    (``process_index``) is their fast-interconnect group."""
+    platform = "gpu"
+
+    def __init__(self, i, host):
+        self.id = i
+        self.process_index = host
+        self.slice_index = 0
+
+    def __repr__(self):
+        return f"gpu{self.id}h{self.process_index}"
+
+
+def test_slice_index_groups_gpus_by_host():
+    from cudecomp_tpu.parallel.mesh import _slice_index, axis_group_size
+    one_host = [_GpuLikeDev(i, 0) for i in range(4)]
+    assert {_slice_index(d) for d in one_host} == {0}
+    assert n_slices(one_host) == 1
+    two_hosts = [_GpuLikeDev(i, i // 4) for i in range(8)]
+    assert [_slice_index(d) for d in two_hosts] == [0] * 4 + [1] * 4
+    assert n_slices(two_hosts) == 2
+    # pc divides the host count: each column holds one host's GPUs, so the
+    # row axis stays inside NVLink and ring_hier's group is the host size
+    mesh = build_decomp_mesh((4, 2), devices=two_hosts)
+    for c in range(2):
+        assert {d.process_index for d in mesh.devices[:, c]} == {c}
+    assert axis_group_size(mesh, "pr") == 4
+    # one host of four GPUs: plain reshape, ring_hier == ring
+    mesh1 = build_decomp_mesh((2, 2), devices=one_host)
+    assert [d.id for d in mesh1.devices.reshape(-1)] == [0, 1, 2, 3]
+    assert axis_group_size(mesh1, "pr") == 2

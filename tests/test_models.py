@@ -313,7 +313,7 @@ def test_taylor_green_integrating_factor_matches_explicit():
     # IF-RK4 integrates the viscous term exactly; at small dt it must agree
     # with the explicit scheme to high order, while at the viscous
     # stability limit only IF survives (chip evidence: 256^3 dt=0.01
-    # diverges explicit, decays with IF — BENCH_NOTES.md r3)
+    # diverges explicit, decays with IF)
     gd = (16, 16, 16)
     grid = make_grid_for(gd, (2, 2))
     nu, dt, n_steps = 0.01, 0.002, 4

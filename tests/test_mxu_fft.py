@@ -1,4 +1,4 @@
-"""MXU matmul FFT (split-complex) — correctness vs numpy across sizes
+"""Matmul FFT (split-complex) — correctness vs numpy across sizes
 (powers of two, composites, primes), plus the distributed split-complex
 pipeline and component-dim transposes that carry it."""
 
@@ -77,33 +77,6 @@ def test_four_step_recursion(monkeypatch):
         b = np.asarray(M.from_split(
             M.fft_split(M.fft_split(xs, axis=axis), axis=axis, inverse=True)))
         np.testing.assert_allclose(b, x, rtol=0, atol=1e-10)
-
-
-def test_fused_dft2_interpret(monkeypatch):
-    # the one-HBM-pass (1,2)-axis-pair kernel vs the per-axis path,
-    # forward and inverse, via the Pallas interpreter
-    monkeypatch.setenv("CUDECOMP_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("CUDECOMP_TPU_FFT_FUSED2", "1")
-    x = RNG.standard_normal((16, 8, 128)) + 1j * RNG.standard_normal(
-        (16, 8, 128))
-    xs = M.to_split(jnp.asarray(x).astype(jnp.complex64))
-    assert M.dft2_fused(xs[..., 0], xs[..., 1], False) is not None
-    out = M.fft_split_axes(xs, [0, 1, 2])
-    want = np.fft.fftn(x, axes=(0, 1, 2))
-    got = np.asarray(M.from_split(out))
-    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-5
-    inv = M.fft_split_axes(out, [1, 2, 0], inverse=True)
-    assert float(jnp.max(jnp.abs(inv - xs))) < 1e-4
-
-
-def test_fused_dft2_gate_falls_back():
-    # off-TPU without interpret: engine must fall back to per-axis einsums
-    x = RNG.standard_normal((8, 8, 128, 2)).astype(np.float32)
-    assert M.dft2_fused(jnp.asarray(x[..., 0]), jnp.asarray(x[..., 1]),
-                        False) is None
-    out = M.fft_split_axes(jnp.asarray(x), [1, 2])
-    ref = M.fft_split(M.fft_split(jnp.asarray(x), 1), 2)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
 
 
 def test_factor_overrides_env(monkeypatch):
@@ -304,49 +277,8 @@ def test_packed_r2c_odd_n_falls_back(monkeypatch):
     assert np.abs((np.asarray(r) + 1j * np.asarray(i)) - ref).max() < 1e-4
 
 
-def test_packed_r2c_default_on():
+def test_packed_r2c_default_on(monkeypatch):
     # packed real transforms are the DEFAULT for even N (half the
-    # contraction length; also the r2c form that executes correctly at
-    # 512^3 on the tracked runtime once the fusion guards are active)
+    # contraction length); the default is read with the knob unset
+    monkeypatch.delenv("CUDECOMP_TPU_FFT_R2C_PACKED", raising=False)
     assert M._use_packed_r2c() is True
-
-
-def test_fusion_guards(monkeypatch):
-    # CUDECOMP_TPU_FFT_GUARD_FUSION: optimization_barrier at the DFT
-    # contraction boundaries (workaround for the tracked runtime defect
-    # where fused slice/flip+elementwise contraction prologues at large
-    # shapes mis-execute).  Semantically an identity: guarded programs
-    # must be numerically identical-quality to unguarded ones.
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((24, 64)).astype(np.float32)
-
-    monkeypatch.setenv("CUDECOMP_TPU_FFT_GUARD_FUSION", "0")
-    assert M._guard_fusion() is False
-    a = np.asarray(x)
-    assert M._guard(jnp.asarray(x))[0].shape == a.shape  # identity tuple
-    r0, i0 = jax.jit(lambda v: M.rfft_planes(v, 1))(jnp.asarray(x))
-
-    monkeypatch.setenv("CUDECOMP_TPU_FFT_GUARD_FUSION", "1")
-    assert M._guard_fusion() is True
-    r1, i1 = jax.jit(lambda v: M.rfft_planes(v, 1))(jnp.asarray(x))
-    ref = np.fft.rfft(x, axis=1)
-    for r, i in ((r0, i0), (r1, i1)):
-        assert np.abs((np.asarray(r) + 1j * np.asarray(i)) - ref).max() < 1e-4
-    # guarded round trip through the full packed path
-    out = jax.jit(lambda v: M.irfft_planes(
-        *M.rfft_planes(v, 1), axis=1, n=64))(jnp.asarray(x))
-    assert np.abs(np.asarray(out) - x).max() < 1e-5
-
-
-def test_fusion_guard_lowering_contract(monkeypatch):
-    # the guard must actually emit optimization_barrier into the traced
-    # program when forced on, and emit none when forced off — this is the
-    # contract the runtime workaround rests on (a silently dropped
-    # barrier would resurface the mis-execution with no test signal)
-    x = jnp.zeros((8, 32), jnp.float32)
-    monkeypatch.setenv("CUDECOMP_TPU_FFT_GUARD_FUSION", "1")
-    jx = str(jax.make_jaxpr(lambda v: M.fft_planes(v, v, (1,)))(x))
-    assert "optimization_barrier" in jx
-    monkeypatch.setenv("CUDECOMP_TPU_FFT_GUARD_FUSION", "0")
-    jx = str(jax.make_jaxpr(lambda v: M.fft_planes(v, v, (1,)))(x))
-    assert "optimization_barrier" not in jx

@@ -4,6 +4,7 @@ derivation, CSV export (performance.cc analog)."""
 import os
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -104,16 +105,13 @@ def test_rows_cross_host_reduction(monkeypatch):
     assert local_row["count"] == 2
 
 
-def test_segment_roundtrip_single_chip_chained(monkeypatch):
-    # the opaque-chain branch: with Pallas kernels in the chain (interpret
-    # mode on CPU) the identity composition cannot fold, so the chained
-    # cycle is timed directly — totals must be positive and a2a zero
+def test_segment_roundtrip_single_chip_chained():
+    # one device, natural layout: every op of the chain is an identity
+    # permute, so each op is timed on its own (a chained cycle would fold
+    # away) — totals must be positive, a2a zero, all of it local
     from cudecomp_tpu import performance as perf
 
-    monkeypatch.setenv("CUDECOMP_TPU_LOCAL_PERMUTE", "mixed")
-    monkeypatch.setenv("CUDECOMP_TPU_PALLAS_INTERPRET", "1")
-    cfg = GridConfig(gdims=(16, 16, 16), pdims=(1, 1),
-                     transpose_axis_contiguous=(True, True, True))
+    cfg = GridConfig(gdims=(16, 16, 16), pdims=(1, 1))
     grid = cd.make_grid(cfg, devices=jax.devices()[:1])
     seg = perf.segment_roundtrip(grid, np.float32, iters=2, n_warmup=1,
                                  n_trials=1, record=False)
@@ -122,12 +120,11 @@ def test_segment_roundtrip_single_chip_chained(monkeypatch):
     assert seg["local_ms"] == seg["total_ms"]
 
 
-def test_segment_roundtrip_single_chip_per_op(monkeypatch):
-    # pure-XLA impl: the chain folds to identity, so the per-op pinned
-    # branch must be taken (and still return positive totals)
+def test_segment_roundtrip_single_chip_per_op():
+    # axis-contiguous pencils: the chain folds to identity, so the per-op
+    # pinned branch must be taken (and still return positive totals)
     from cudecomp_tpu import performance as perf
 
-    monkeypatch.setenv("CUDECOMP_TPU_LOCAL_PERMUTE", "xla")
     cfg = GridConfig(gdims=(16, 16, 16), pdims=(1, 1),
                      transpose_axis_contiguous=(True, True, True))
     grid = cd.make_grid(cfg, devices=jax.devices()[:1])
@@ -173,34 +170,30 @@ def test_report_write_dir_env(tmp_path, monkeypatch):
         REGISTRY.samples.clear()
 
 
-def test_segment_roundtrip_mixed_on_cpu_takes_per_op_branch(monkeypatch):
-    # review fix: CUDECOMP_TPU_LOCAL_PERMUTE=mixed WITHOUT interpret on a
-    # cpu backend means the kernel declines (no Mosaic lowering) and the
-    # chain would fold — the per-op pinned branch must be used, so the
-    # reported time matches the honest xla measurement, not a folded chain
+def test_segment_roundtrip_mixed_on_cpu_takes_per_op_branch():
+    # complex payloads take the same one-device per-op branch as real ones
+    # (every local permute is XLA's): the c64 round trip moves twice the
+    # f32 bytes through the same program shape, so it is timed, not folded
     from cudecomp_tpu import performance as perf
 
-    monkeypatch.delenv("CUDECOMP_TPU_PALLAS_INTERPRET", raising=False)
     cfg = GridConfig(gdims=(32, 32, 32), pdims=(1, 1),
                      transpose_axis_contiguous=(True, True, True))
     grid = cd.make_grid(cfg, devices=jax.devices()[:1])
-    monkeypatch.setenv("CUDECOMP_TPU_LOCAL_PERMUTE", "mixed")
-    seg_mixed = perf.segment_roundtrip(grid, np.float32, iters=4,
-                                       n_warmup=1, n_trials=2, record=False)
-    monkeypatch.setenv("CUDECOMP_TPU_LOCAL_PERMUTE", "xla")
-    seg_xla = perf.segment_roundtrip(grid, np.float32, iters=4,
-                                     n_warmup=1, n_trials=2, record=False)
-    # same branch, same program content: within a generous noise factor
-    assert seg_mixed["total_ms"] > 0.3 * seg_xla["total_ms"]
+    seg_c = perf.segment_roundtrip(grid, np.complex64, iters=4,
+                                   n_warmup=1, n_trials=2, record=False)
+    seg_r = perf.segment_roundtrip(grid, np.float32, iters=4,
+                                   n_warmup=1, n_trials=2, record=False)
+    for seg in (seg_c, seg_r):
+        assert seg["total_ms"] > 0
+        assert seg["a2a_ms"] == 0.0 and seg["local_ms"] == seg["total_ms"]
 
 
-def test_segment_roundtrip_single_chip_noncubic_scanned(monkeypatch):
+def test_segment_roundtrip_single_chip_noncubic_scanned():
     # non-cubic single chip: ops change buffer shape, so the scalar-
     # feedback scan path must be taken and return finite non-negative
     # per-op-summed totals with a2a zero
     from cudecomp_tpu import performance as perf
 
-    monkeypatch.setenv("CUDECOMP_TPU_LOCAL_PERMUTE", "xla")
     cfg = GridConfig(gdims=(24, 16, 8), pdims=(1, 1),
                      transpose_axis_contiguous=(True, True, True))
     grid = cd.make_grid(cfg, devices=jax.devices()[:1])
@@ -266,3 +259,65 @@ def test_attributed_trace_joins_device_times(tmp_path):
         cd.perf_report_enable(False)
         REGISTRY.clear()
     assert REGISTRY.trace_attribution is None  # clear drops the join
+
+
+def _gpu_form_trace():
+    """A small trace-events export in the form the profiler writes on a
+    GPU: one host process (python and runtime threads, some events tagged
+    with the op they launched) and one process per card whose stream
+    threads carry the executed kernels, plus a whole-program lane in the
+    device process that covers the same time again."""
+    ev = [
+        {"ph": "M", "name": "process_name", "pid": 1,
+         "args": {"name": "/host:CPU"}},
+        {"ph": "M", "name": "thread_name", "pid": 1, "tid": 1,
+         "args": {"name": "python"}},
+        {"ph": "M", "name": "process_name", "pid": 2,
+         "args": {"name": "/device:GPU:0"}},
+        {"ph": "M", "name": "thread_name", "pid": 2, "tid": 10,
+         "args": {"name": "XLA Modules"}},
+        {"ph": "M", "name": "thread_name", "pid": 2, "tid": 13,
+         "args": {"name": "Stream #13(Compute)"}},
+        {"ph": "M", "name": "thread_name", "pid": 2, "tid": 14,
+         "args": {"name": "Stream #14(Collective)"}},
+        {"ph": "M", "name": "process_name", "pid": 3,
+         "args": {"name": "/device:GPU:1"}},
+        {"ph": "M", "name": "thread_name", "pid": 3, "tid": 13,
+         "args": {"name": "Stream #13(Compute)"}},
+        # host: dispatch spans, one tagged with the op it launched
+        {"ph": "X", "pid": 1, "tid": 1, "name": "PjitFunction", "dur": 900},
+        {"ph": "X", "pid": 1, "tid": 1, "name": "launch", "dur": 50,
+         "args": {"hlo_op": "fusion.1"}},
+        # device 0: program span + the kernels it ran, on two streams
+        {"ph": "X", "pid": 2, "tid": 10, "name": "jit_step", "dur": 700},
+        {"ph": "X", "pid": 2, "tid": 13, "name": "loop_add_fusion",
+         "dur": 200, "args": {"hlo_op": "loop_add_fusion"}},
+        {"ph": "X", "pid": 2, "tid": 14, "name": "all_to_all.6.1",
+         "dur": 300},
+        # device 1: one collective kernel
+        {"ph": "X", "pid": 3, "tid": 13, "name": "collective-permute.3",
+         "dur": 100},
+    ]
+    return {"traceEvents": ev}
+
+
+def test_device_op_spans_gpu_trace(tmp_path):
+    # GPU form: host lanes are excluded, only the stream lanes of each
+    # device process count (the program lane is not counted twice), and
+    # the collectives land in the comm bucket
+    import gzip
+    import json
+    from cudecomp_tpu import performance as perf
+
+    spans = perf._device_op_spans(_gpu_form_trace())
+    assert sorted(spans) == [("all_to_all.6.1", 0.3),
+                             ("collective-permute.3", 0.1),
+                             ("loop_add_fusion", 0.2)]
+    d = tmp_path / "plugins" / "profile" / "run"
+    d.mkdir(parents=True)
+    with gzip.open(d / "host.trace.json.gz", "wt") as f:
+        json.dump(_gpu_form_trace(), f)
+    attr = perf.device_op_attribution(str(tmp_path))
+    assert attr["total_ms"] == pytest.approx(0.6)
+    assert attr["comm_ms"] == pytest.approx(0.4)
+    assert attr["local_ms"] == pytest.approx(0.2)

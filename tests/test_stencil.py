@@ -1,6 +1,6 @@
 """Ghost-plane stencil pipeline (ops/stencil.py) — numpy-oracle tests on
 the virtual CPU mesh, periodic + non-periodic, pencil axes, layouts, and
-the Pallas kernel in interpret mode."""
+the 27-point weighted form."""
 
 import numpy as np
 import pytest
@@ -89,22 +89,6 @@ def test_shape_mismatch_rejected():
     grid = cd.make_grid(cfg)
     with pytest.raises(ValueError, match="does not match"):
         cd.laplacian7(grid, jnp.zeros((8, 16, 16)), 0, (True,) * 3)
-
-
-def test_pallas_kernel_interpret(monkeypatch):
-    # run the real Mosaic kernel path in interpret mode on the CPU mesh
-    monkeypatch.setenv("CUDECOMP_TPU_PALLAS_INTERPRET", "1")
-    from cudecomp_tpu.ops import stencil as st
-    assert st._kernel_eligible((16, 16, 128), np.float32, True)
-    run_case((16, 16, 128), (1, 1), 0, (True, True, True), dtype=np.float32)
-    run_case((16, 16, 128), (1, 1), 0, (True, False, False),
-             dtype=np.float32, steps=2, dt=0.1)
-    # x in ghost mode (non-periodic): exercises the edge-block selects
-    run_case((16, 16, 128), (1, 1), 0, (False, True, True),
-             dtype=np.float32)
-    # sharded dims in ghost mode: ppermute exchange + interpret kernel
-    run_case((16, 16, 128), (2, 4), 0, (True, True, True),
-             dtype=np.float32)
 
 
 def np_extend(u, widths, periods):
@@ -292,25 +276,6 @@ def test_stencil_apply_dense_weights(pdims, periods):
                                rtol=0, atol=1e-11)
 
 
-@pytest.mark.parametrize("periods", [(True, True, True),
-                                     (False, True, True)])
-def test_stencil_apply_kernel_interpret(periods, monkeypatch):
-    # the fused 27-point kernel (y/z wrap; x wrap or ghost mode)
-    monkeypatch.setenv("CUDECOMP_TPU_PALLAS_INTERPRET", "1")
-    gdims = (16, 16, 128)
-    grid = cd.make_grid(GridConfig(gdims=gdims, pdims=(1, 1)),
-                        devices=jax.devices()[:1])
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal(gdims).astype(np.float32)
-    w = rng.standard_normal((3, 3, 3))
-    w[0, 0, 2] = 0.0  # a zero tap must drop out
-    u = cd.scatter_global(grid, x, 0)
-    got = np.asarray(cd.gather_global(
-        grid, cd.stencil_apply(grid, u, w, 0, periods), 0))
-    np.testing.assert_allclose(got, np_stencil27(x, w, periods),
-                               rtol=2e-5, atol=2e-4)
-
-
 def test_stencil_apply_matches_laplacian7():
     grid = cd.make_grid(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)),
                         devices=jax.devices()[:4])
@@ -348,38 +313,6 @@ def test_stencil_apply_gradient_reflected_adjoint(periods):
                                rtol=0, atol=1e-11)
 
 
-def test_stencil_apply_kernel_sharded_face_taps(monkeypatch):
-    # face-only tap sets fuse on real meshes: sharded y/z run the kernel
-    # with ghost-plane selects (interpret mode)
-    monkeypatch.setenv("CUDECOMP_TPU_PALLAS_INTERPRET", "1")
-    gdims = (16, 16, 512)
-    pdims = (2, 4)
-    grid = cd.make_grid(GridConfig(gdims=gdims, pdims=pdims))
-    rng = np.random.default_rng(14)
-    x = rng.standard_normal(gdims).astype(np.float32)
-    w = np.zeros((3, 3, 3))
-    # anisotropic 7-point (face taps only)
-    w[0, 1, 1] = w[2, 1, 1] = 1.0
-    w[1, 0, 1] = w[1, 2, 1] = 2.5
-    w[1, 1, 0] = w[1, 1, 2] = 0.5
-    w[1, 1, 1] = -8.0
-    u = cd.scatter_global(grid, x, 0)
-    # poison the fallback: these configs MUST take the fused kernel
-    from cudecomp_tpu.ops import stencil as st
-
-    def _no_fallback(*a, **k):
-        raise AssertionError("face-tap set took the halo_map fallback")
-
-    monkeypatch.setattr(st, "halo_map", _no_fallback)
-    st._stencil_apply_fn.cache_clear()
-    for periods in ((True, True, True), (True, False, True)):
-        got = np.asarray(cd.gather_global(
-            grid, cd.stencil_apply(grid, u, w, 0, periods), 0))
-        np.testing.assert_allclose(got, np_stencil27(x, w, periods),
-                                   rtol=2e-5, atol=2e-4)
-    st._stencil_apply_fn.cache_clear()
-
-
 def test_stencil_apply_rejects_bad_weights():
     grid = cd.make_grid(GridConfig(gdims=(16, 16, 16), pdims=(2, 4)))
     u = jnp.zeros((16, 16, 16))
@@ -387,16 +320,60 @@ def test_stencil_apply_rejects_bad_weights():
         cd.stencil_apply(grid, u, np.zeros((3, 3)), 0)
 
 
-def test_kernel_eligibility():
+def _taps(w):
+    return tuple(((dx, dy, dz), float(w[1 + dx, 1 + dy, 1 + dz]))
+                 for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                 for dz in (-1, 0, 1) if w[1 + dx, 1 + dy, 1 + dz] != 0.0)
+
+
+@pytest.mark.parametrize("wrap", [(True, True, True), (False, False, False),
+                                  (False, True, False), (True, False, True)])
+@pytest.mark.parametrize("dense", [False, True])
+def test_stencil_kernel_interpret(wrap, dense):
+    # the GPU kernel (Triton route) in interpret mode: wrap dims index the
+    # block modulo its extent, the others read one ghost plane per side
     from cudecomp_tpu.ops import stencil as st
-    # off-TPU without interpret: never
-    if jax.default_backend() in ("cpu", "gpu"):
-        assert not st._kernel_eligible((512, 512, 512), np.float32, False)
-    # interpret isolates the shape logic
-    assert st._kernel_eligible((512, 512, 512), np.float32, True)
-    assert st._pick_bx(512) == 16
-    assert st._pick_bx(24) == 8
-    assert st._pick_bx(10) == 2
-    # byte cap: 512^3 f32 planes are 1 MB -> 8-plane blocks
-    assert st._pick_bx(512, 512 * 512 * 4) == 8
-    assert st._pick_bx(256, 256 * 256 * 4) == 16
+    ext = (6, 8, 64)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(ext).astype(np.float32)
+    if dense:
+        w = rng.uniform(-1.0, 1.0, (3, 3, 3))
+    else:
+        w = np.zeros((3, 3, 3))
+        w[1, 1, 1] = 0.4
+        for o in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[o] = 0.1
+    ue = np.pad(x, [(0, 0) if wr else (1, 1) for wr in wrap], mode="wrap")
+    got = st._stencil_kernel_call(jnp.asarray(ue), _taps(w), ext, wrap,
+                                  interpret=True)
+    np.testing.assert_allclose(np.asarray(got),
+                               np_stencil27(x, w, (True,) * 3),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_stencil_kernel_tiles():
+    from cudecomp_tpu.ops import stencil as st
+    assert st._kernel_tiles((512, 512, 512)) == (8, 512)
+    assert st._kernel_tiles((256, 256, 1024)) == (8, 512)
+    assert st._kernel_tiles((8, 12, 64)) == (4, 64)
+    assert st._kernel_tiles((16, 16, 48)) is None    # no pow-2 tile >= 32
+    assert st._kernel_tiles((16, 16, 16)) is None
+
+
+def test_stencil_kernel_choice():
+    # the kernel serves float32 on GPU meshes whose extents tile; CPU
+    # meshes and other dtypes keep the XLA shifted-slice form
+    from types import SimpleNamespace
+    from cudecomp_tpu.ops import stencil as st
+
+    def grid_on(platform):
+        dev = SimpleNamespace(platform=platform)
+        return SimpleNamespace(mesh=SimpleNamespace(
+            devices=np.array([dev], dtype=object)))
+
+    gpu, cpu = grid_on("gpu"), grid_on("cpu")
+    assert st._use_stencil_kernel(gpu, (512, 512, 512), np.float32)
+    assert not st._use_stencil_kernel(gpu, (512, 512, 512), np.float64)
+    assert not st._use_stencil_kernel(gpu, (16, 16, 48), np.float32)
+    assert not st._use_stencil_kernel(cpu, (512, 512, 512), np.float32)

@@ -319,3 +319,68 @@ def test_clear_plan_caches_releases_and_recompiles():
     assert _build_transpose_fn.cache_info().currsize == 0
     y2 = cd.transpose_x_to_y(grid, x)  # recompiles fine
     np.testing.assert_allclose(np.asarray(y2), np.asarray(y))
+
+
+def _grid_1d(gdims, n=4, **cfg_kw):
+    """Slab grid on a genuinely single-axis mesh (pdims (n, 1), the pc
+    axis omitted from the mesh)."""
+    from jax.sharding import Mesh
+    cfg = GridConfig(gdims=gdims, pdims=(n, 1), **cfg_kw)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("pr",))
+    return cd.make_grid(cfg, mesh=mesh)
+
+
+def test_1d_mesh_all_methods_oracle():
+    # the relaxed 1D-mesh GridDescriptor is correct for every strategy
+    gdims = (8, 12, 16)
+    f = T.global_index_field(gdims)
+    for m in (TransposeMethod.ALL_TO_ALL, TransposeMethod.RING,
+              TransposeMethod.RING_PIPELINED):
+        grid = _grid_1d(gdims)
+        x = cd.scatter_global(grid, f, 0)
+        y = cd.transpose_x_to_y(grid, x, method=m)
+        np.testing.assert_allclose(cd.gather_global(grid, y, 1), f,
+                                   err_msg=str(m))
+        z = cd.transpose_y_to_z(grid, y, method=m)  # pc=1: slab elision
+        np.testing.assert_allclose(cd.gather_global(grid, z, 2), f,
+                                   err_msg=str(m))
+
+
+def test_net_perm():
+    from cudecomp_tpu.ops.transpose import _net_perm
+
+    cfg = GridConfig(gdims=(16, 24, 32), pdims=(1, 1),
+                     transpose_axis_contiguous=(True, True, True))
+    cyc = {(1, 2, 0), (2, 0, 1)}
+    for a, d in ((0, +1), (1, +1), (2, -1), (1, -1)):
+        assert _net_perm(cfg, a, d) in cyc
+    # natural layout: nets are identity (single-device transposes are no-ops)
+    cfg_n = GridConfig(gdims=(16, 24, 32), pdims=(1, 1))
+    for a, d in ((0, +1), (1, +1), (2, -1), (1, -1)):
+        assert _net_perm(cfg_n, a, d) == (0, 1, 2)
+
+
+_PERMS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64, jnp.bfloat16])
+@pytest.mark.parametrize("perm", _PERMS)
+def test_local_permute_matches_numpy(perm, dtype):
+    # one device, natural X pencil, Y pencil stored in order ``perm``: the
+    # X->Y transpose is exactly one local permute (XLA's transpose), whose
+    # output buffer must equal np.transpose of the input
+    from cudecomp_tpu.ops.transpose import _net_perm
+
+    gd = (6, 10, 14)
+    cfg = GridConfig(gdims=gd, pdims=(1, 1),
+                     transpose_mem_order=((0, 1, 2), perm, (0, 1, 2)))
+    grid = cd.make_grid(cfg, devices=jax.devices()[:1])
+    assert _net_perm(cfg, 0, +1) == perm
+    f = np.arange(np.prod(gd)).reshape(gd) % 251
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        f = f + 1j * (f[::-1] % 7)
+    f = np.asarray(f).astype(dtype)
+    x = jax.device_put(f, grid.sharding(0))
+    y = cd.transpose_x_to_y(grid, x)
+    assert y.dtype == x.dtype
+    np.testing.assert_array_equal(np.asarray(y), np.transpose(f, perm))
